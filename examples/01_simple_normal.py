@@ -1,7 +1,7 @@
 """Example 01: estimate a normal distribution's mean and std.
 
 Port of reference examples/01_simple_normal.py (same scenario: seed 42,
-true mu=5.0, sigma=2.0, n=100 — BASELINE.md ground truth), rebuilt TPU-first:
+true mu=5.0, sigma=2.0, n=100 — BASELINE.md ground truth), rebuilt as one compiled program:
 the likelihood is one batched vectorized log_prob over the whole data array
 (the reference loops per observation, examples/01:46-48) and sampling runs as
 a single compiled program with 8 parallel chains.

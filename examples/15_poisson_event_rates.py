@@ -6,7 +6,7 @@ the model class its README table only promises (README.md:105-113): 1000
 group rates, 100 observed counts each, partial pooling through a
 non-centered log-rate hierarchy.
 
-TPU-first twice over:
+Compiled-engine-first twice over:
  1. the likelihood is an exponential family, so the O(N)=100K data
     reduction collapses EXACTLY to per-group sufficient statistics at
     data-prep time (ops/suffstats.py make_poisson_rates_model) — each

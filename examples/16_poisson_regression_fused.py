@@ -1,29 +1,30 @@
-"""Example 16: hierarchical Poisson REGRESSION with the fused Pallas kernel.
+"""Example 16: hierarchical Poisson REGRESSION with a hand-written value+grad.
 
 The non-collapsible sibling of example 15: per-observation covariates
 (rate = exp(theta_g + x . beta)) destroy the sufficient-statistic
 structure, so every gradient evaluation must touch all 100K observations —
 the honest full-data "Large model" workload.
 
-Two TPU-first lessons are load-bearing here (ops/pallas/poisson.py):
+Two lessons are load-bearing here (ops/poisson.py):
 
- 1. PRECISION: at this scale the MXU's default bf16 operand rounding
-    injects ~7 nats of state-dependent log-likelihood noise — enough to
-    collapse NUTS adaptation outright (step size driven to 1e-5, every
-    tree at the depth cap). The fused kernel computes the linear predictor
-    at exact f32 on the VPU and accumulates per-row terms centered on
-    per-group baseline rates; an equivalent hand-written XLA model needs
-    ``precision=jax.lax.Precision.HIGHEST`` on its likelihood matmul.
- 2. FUSION: value, per-group gradient (a segment reduce folded into the
-    gradient matmul via a constant block-diagonal expansion operand) and
-    covariate gradient all come from ONE pass over the observations.
+ 1. PRECISION: at this scale a linear predictor with rounded operands
+    (bf16, or TF32 from a default-precision float32 matmul on the GPU)
+    injects nats of state-dependent log-likelihood noise — enough to
+    collapse NUTS adaptation outright (step size driven towards zero,
+    every tree at the depth cap). The vag builds the predictor from K
+    exact float32 multiply-adds and sums per-row terms centered on
+    per-group baseline rates; an equivalent model written with a matmul
+    needs ``precision=jax.lax.Precision.HIGHEST`` on it.
+ 2. FUSION: value, per-group gradient (a reshape-and-sum over contiguous
+    groups) and covariate gradient are written out by hand, so XLA fuses
+    the whole elementwise chain into its reductions.
 """
 
 import numpy as np
 
 from mlx_mcmc_tpu import sample
 from mlx_mcmc_tpu.models import make_poisson_event_rates
-from mlx_mcmc_tpu.ops.pallas.poisson import (
+from mlx_mcmc_tpu.ops.poisson import (
     make_fused_poisson_model,
     prepare_fused_poisson_data,
 )
@@ -31,7 +32,7 @@ from mlx_mcmc_tpu.ops.pallas.poisson import (
 
 def main():
     print("=" * 70)
-    print("Example 16: Hierarchical Poisson Regression (fused Pallas)")
+    print("Example 16: Hierarchical Poisson Regression (hand-written vag)")
     print("=" * 70)
 
     spec = make_poisson_event_rates(

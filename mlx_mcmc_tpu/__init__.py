@@ -1,9 +1,9 @@
-"""mlx-mcmc-tpu: a TPU-native Bayesian MCMC inference engine.
+"""mlx-mcmc-tpu: a compiled Bayesian MCMC inference engine for the GPU.
 
 A from-scratch JAX/XLA/Pallas/pjit framework with the capabilities of the
 reference ``mlx_mcmc`` library (mlx_mcmc/__init__.py:24-46 export surface):
 six distributions, Metropolis-Hastings / HMC / NUTS kernels, and the ``MCMC``
-facade — rebuilt for TPU: whole-sampler ``lax.scan`` (no host loops), iterative
+facade — rebuilt as one compiled program: whole-sampler ``lax.scan`` (no host loops), iterative
 fixed-depth NUTS, vmapped chains sharded over a device mesh, cross-chain
 warmup adaptation via collectives, and R-hat/ESS diagnostics.
 

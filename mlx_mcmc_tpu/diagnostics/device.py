@@ -5,7 +5,7 @@ chain axis sharded across a mesh, where cross-chain moments ride
 ``lax.pmean``/``psum`` collectives (SURVEY.md §2.3). Only the thin (P,)
 statistics leave the device, never the (chains, draws, P) draw tensor: for a
 1000-param x 100K-draw x many-host run that's the difference between moving
-kilobytes and moving the whole sample store over DCN.
+kilobytes and moving the whole sample store between hosts.
 
 Semantics match ``diagnostics/stats.py`` (numpy reference): split-chain
 R-hat, FFT autocovariance + Geyer initial monotone positive sequence ESS.

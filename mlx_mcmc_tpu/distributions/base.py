@@ -3,7 +3,7 @@
 Reference parity: mlx_mcmc/distributions/base.py:6-50 defines ``Distribution``
 with ``log_prob(value)`` and ``sample(key, shape=())``.
 
-TPU-first deltas:
+Design deltas:
 - every method is a pure traced function — safe under ``jit``/``grad``/``vmap``/
   ``pjit`` with traced parameters (the reference computes Beta/Gamma
   normalizers on host via scipy at construction, beta.py:53-57/gamma.py:55-59,

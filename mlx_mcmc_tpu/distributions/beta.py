@@ -1,7 +1,7 @@
 """Beta distribution on (0, 1).
 
 Reference parity: mlx_mcmc/distributions/beta.py:9-151 (``log_prob`` :59-91,
-``sample`` :93-119, moments :121-151). TPU-first deltas: the log-normalizer
+``sample`` :93-119, moments :121-151). Design deltas: the log-normalizer
 ``log B(a, b)`` is traced on-device via ``jax.scipy.special.betaln`` (the
 reference calls host scipy ``gammaln`` at construction, beta.py:53-57, which
 would break under traced parameters), and sampling is on-device

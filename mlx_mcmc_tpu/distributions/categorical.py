@@ -3,7 +3,7 @@
 Reference parity: mlx_mcmc/distributions/categorical.py:7-150 (XOR
 ``probs``/``logits`` constructor :53-65, gather-based ``log_prob`` :69-93 with
 invalid-index masking, ``sample`` :95-128, ``entropy``/``mode`` :130-150).
-TPU-first deltas: sampling is one vectorized ``jax.random.categorical``
+Design deltas: sampling is one vectorized ``jax.random.categorical``
 (Gumbel-max on-device) instead of the reference's uniform+cumsum comparison
 loop, and batched category axes are supported via ``take_along_axis``.
 """

@@ -2,7 +2,7 @@
 
 Reference parity: mlx_mcmc/distributions/gamma.py:9-149 (shape-rate at :24,
 ``log_prob`` :61-88, ``sample`` :90-117 with a shape-scale conversion, moments
-:119-149). TPU-first deltas: ``gammaln`` is traced on-device (reference uses
+:119-149). Design deltas: ``gammaln`` is traced on-device (reference uses
 host scipy, gamma.py:55-59) and sampling is ``jax.random.gamma`` scaled by
 ``1/rate`` (reference escapes to numpy, gamma.py:107-117).
 """

@@ -617,7 +617,7 @@ def sample_posterior_predictive(
     )(jnp.arange(num_chains))
     # Same compiled-runner caching as sample(): keyed on the predictive fn's
     # identity; data flows as a jit ARGUMENT (a closure constant would be
-    # serialized into the program — breaks remote compile for big datasets).
+    # serialized into the program, which bloats compilation for big datasets).
     cache_key = (id(predictive_fn), data is not None)
     hit = _cache_get(cache_key)
     if hit is None:

@@ -198,10 +198,10 @@ def build_sampler(
 
     ``store_dtype`` (e.g. ``jnp.bfloat16``) down-casts ONLY the stored draw
     positions — kernel state, adaptation, and all step arithmetic stay f32.
-    A bf16 store halves the (chains, draws, D) HBM footprint, the usual
-    ceiling at wide chain counts; on TPU the MXU computes f32 matmuls at
-    bf16 operand precision anyway, so summary statistics on bf16-stored
-    draws add rounding far below Monte-Carlo error.
+    A bf16 store halves the (chains, draws, D) device-memory footprint, the
+    usual ceiling at wide chain counts; bf16 keeps about three significant
+    digits, so summary statistics on bf16-stored draws add rounding far
+    below Monte-Carlo error.
     """
     if target_accept is None:
         target_accept = default_target_accept(kernel)

@@ -7,13 +7,13 @@ ensemble itself, making the sampler invariant to affine reparameterizations
 — no step-size or mass-matrix tuning at all, and strong performance on
 skewed/correlated posteriors where an untuned random walk crawls.
 
-TPU-first mapping: walkers ARE the batch axis. The classic serial algorithm
+Compiled mapping: walkers ARE the batch axis. The classic serial algorithm
 updates one walker at a time; here we use the parallel complementary-halves
 formulation (emcee's "red-black" scheme): split the ensemble into two fixed
 halves, update all walkers of one half simultaneously against the *other*
 half (which preserves detailed balance), then swap. Each half-update is one
 batched ``log_prob`` evaluation — an (W/2, D) matrix op that tiles onto the
-MXU for data-heavy models — and the whole run is warmup scan + sampling scan
+tensor cores for data-heavy models — and the whole run is warmup scan + sampling scan
 under a single ``jit``, exactly like the engine's gradient kernels.
 
 Stretch move (Goodman & Weare 2010): partner X_j drawn from the complement,

@@ -11,8 +11,8 @@ reweighting, resampling, and MCMC-mutating at each stage (Del Moral, Doucet
 (log Z — the model-evidence quantity WAIC/LOO can't provide) and handles
 multimodal targets by populating modes in proportion to their mass.
 
-TPU-first mapping: particles are the batch axis (every stage is a batched
-log_prob over the (P, D) population — MXU-friendly for data-heavy models);
+Compiled mapping: particles are the batch axis (every stage is a batched
+log_prob over the (P, D) population — matmul-friendly for data-heavy models);
 the adaptive temperature ladder is a ``lax.while_loop`` whose next beta is
 solved *on device* by bisection on the ESS of the incremental weights
 (Chopin & Papaspiliopoulos 2020, adaptive tempering); systematic resampling
@@ -84,7 +84,7 @@ def sample_smc(
     Args:
         log_prob_fn: dict-of-params model (binary with ``data``), same
             contract as :func:`mlx_mcmc_tpu.sample`.
-        num_particles: population size (the TPU batch axis; use powers of
+        num_particles: population size (the device batch axis; use powers of
             two ≥ 512 on real chips).
         num_mutations: MH mutation steps per tempering stage.
         ess_target: the next temperature is chosen so the effective sample

@@ -8,7 +8,7 @@ between modes freely and deterministic even-odd (DEO) swap moves (Okabe et
 al. 2001; non-reversible scheme of Syed et al. 2021) transport those
 crossings down to the cold chain.
 
-TPU shape: the ladder is a leading vmapped axis — every replica steps in
+Compiled shape: the ladder is a leading vmapped axis — every replica steps in
 lockstep (same compiled kernel, beta enters as a traced scalar through the
 closure), and a swap round is a pure gather along the replica axis: partner
 indices and accept decisions are computed symmetrically per pair, then every

@@ -8,7 +8,7 @@ compiled mean-field Gaussian ADVI fit:
 
 maximized by reparameterized stochastic gradients of the ELBO under one
 ``jit``: a single ``lax.scan`` over Adam steps, ``vmap`` over Monte-Carlo
-samples. No host round-trips inside the loop — the TPU analog of the
+samples. No host round-trips inside the loop — the compiled analog of the
 reference's host-loop pathology fix, applied to VI.
 
 Two uses:
@@ -72,7 +72,7 @@ def fit_advi_flat(
     log_sigma0 = jnp.full((dim,), init_log_sigma, jnp.float32)
 
     # key and data are jit ARGUMENTS (not closure constants): a captured
-    # dataset would be serialized into the program (breaks remote compile
+    # dataset would be serialized into the program (bloating compilation
     # for big arrays), and a captured key would freeze the fit's randomness
     # into the cached trace.
     def fit(var_params0, key, data):
@@ -154,7 +154,7 @@ def fit_advi_fullrank_flat(
 
     Captures posterior correlations the mean-field family cannot (its
     marginal variances shrink as 1-ρ² on correlated targets). Cost per step
-    is O(D²) parameters and one (M, D)·(D, D) matmul — MXU-friendly; use
+    is O(D²) parameters and one (M, D)·(D, D) matmul — tensor-core friendly; use
     for D up to a few thousand.
 
     Returns ``(mu, scale_tril, elbo_trace)``.

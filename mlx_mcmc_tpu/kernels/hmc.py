@@ -1,7 +1,7 @@
 """Hamiltonian Monte Carlo kernel.
 
 Reference parity: mlx_mcmc/kernels/hmc.py:7-206 — momentum refresh, L leapfrog
-steps, Metropolis accept on the energy difference. TPU-first deltas: the inner
+steps, Metropolis accept on the energy difference. Design deltas: the inner
 leapfrog loop is a ``lax.scan`` (one compiled region; the reference loops in
 Python re-tracing per-param ``mx.grad`` twice per step, hmc.py:132-133), the
 mass matrix is a diagonal estimate rather than hardcoded identity

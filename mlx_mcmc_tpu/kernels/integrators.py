@@ -2,7 +2,7 @@
 
 Reference parity: the leapfrog half-kick/drift/half-kick structure of
 mlx_mcmc/kernels/hmc.py:69-100 and the Hamiltonian of hmc.py:102-111 —
-rebuilt as fused VPU updates on flat vectors with a diagonal mass matrix
+rebuilt as fused elementwise updates on flat vectors with a diagonal mass matrix
 (the reference hardcodes identity mass and per-param Python dicts).
 
 Gradient convention: ``grad`` is d(log_prob)/dz, so the momentum kick is

@@ -8,8 +8,8 @@ on smooth targets. Structurally it is a single preconditioned Euler step of
 the Langevin diffusion with the Hastings correction for the asymmetric
 proposal density.
 
-TPU shape: one fused value+grad evaluation (optionally the Pallas GLM
-kernel), all-vector VPU updates, traced accept select — scans and vmaps like
+Compiled shape: one fused value+grad evaluation (optionally the Pallas GLM
+kernel), all-vector elementwise updates, traced accept select — scans and vmaps like
 every other kernel here. The diagonal mass-matrix estimate preconditions the
 proposal: covariance ``eps^2 * M^{-1}``, drift ``(eps^2 / 2) M^{-1} grad``
 (Roberts & Tweedie 1996; optimal-scaling acceptance target 0.574).

@@ -1,7 +1,7 @@
 """Random-walk Metropolis-Hastings kernel.
 
 Reference parity: mlx_mcmc/kernels/metropolis.py:6-101 — Gaussian random-walk
-proposal, accept if ``log u < Δlogp``. TPU-first deltas: the per-iteration
+proposal, accept if ``log u < Δlogp``. Design deltas: the per-iteration
 Python loop with host ``float()`` accept branches (metropolis.py:64-92) is
 replaced by a pure ``step`` (the accept is a traced ``jnp.where`` select) that
 runs under ``lax.scan``/``vmap``; the proposal is one fused vector update

@@ -4,7 +4,7 @@ Reference parity: mlx_mcmc/kernels/nuts.py:16-358 implements Hoffman & Gelman
 (2014) with recursive ``build_tree`` (nuts.py:137-218), host-evaluated U-turn
 checks (nuts.py:119-135) and a data-dependent Python doubling loop
 (nuts.py:251-280) — a formulation that cannot compile. This module is the
-TPU-native redesign (SURVEY.md §7 design delta #2):
+Compiled redesign (SURVEY.md §7 design delta #2):
 
 - the doubling loop is a ``lax.while_loop``; each doubling builds its subtree
   *iteratively* with a checkpoint-array U-turn scheme (popcount-indexed
@@ -78,8 +78,8 @@ class _NutsCarry(NamedTuple):
     in-flight subtree, advanced ONE leapfrog per loop iteration.
 
     The textbook nested formulation (doubling while-loop around a subtree
-    while-loop) pays a loop-boundary cost per doubling that measures ~1.8 ms
-    at 4096 vmapped chains on v5e — more than the leapfrog itself. Flattening
+    while-loop) pays a loop-boundary cost per doubling, which at thousands
+    of vmapped chains can exceed the leapfrog itself. Flattening
     to a single loop makes the iteration count proportional to the leapfrog
     count; subtree completion and tree merging happen branchlessly via masked
     selects inside the body. Each iteration advances one even+odd leaf PAIR
@@ -333,9 +333,9 @@ def make_nuts_kernel(
             # Stored via a masked full-array write, NOT ``.at[ckpt_idx].set``:
             # under the chain vmap the slot index is a per-chain traced value,
             # so a dynamic-index update lowers to a scatter over
-            # (chains, T, D) — serialized row-by-row on TPU and, measured,
-            # the dominant bookkeeping cost. The masked write is T-times the
-            # bytes of one slot but fully vectorized.
+            # (chains, T, D), which serializes and dominated the bookkeeping
+            # where it was measured. The masked write is T-times the bytes of
+            # one slot but fully vectorized.
             ckpt_idx = _popcount(leaf_a)
             slots = jnp.arange(max_tree_depth, dtype=jnp.int32)
             hit = (slots == ckpt_idx)[:, None]  # (T, 1)

@@ -1,16 +1,17 @@
-"""Generalized linear models — the MXU-heavy benchmark family.
+"""Generalized linear models — the matmul-heavy benchmark family.
 
 These are the "100 params / 10K obs" and "1000 params / 100K obs" workloads
 the reference only *names* in its performance table (README.md:105-113)
-without shipping code. Design decisions for TPU:
+without shipping code. Design decisions:
 
-- the design matrix ``X`` lives in HBM once; each log-density evaluation is
-  one ``X @ beta`` matvec that XLA maps onto the MXU — and under ``vmap``
-  over chains it becomes an ``(N, D) @ (D, C)`` matmul, which is exactly the
-  shape the MXU wants (contrast with the reference's per-observation Python
-  loops, examples/01:46-48);
-- data can optionally be stored in bfloat16 to halve HBM traffic (dominant
-  cost for large N) while accumulating in f32.
+- the design matrix ``X`` lives in device memory once; each log-density
+  evaluation is one ``X @ beta`` product — and under ``vmap`` over chains
+  it becomes an ``(N, D) @ (D, C)`` matmul for the tensor cores (contrast
+  with the reference's per-observation Python loops, examples/01:46-48);
+- data can optionally be stored in bfloat16 to halve the bytes each
+  evaluation reads (the dominant cost for large N) while accumulating in
+  f32. float32 data gets a full-precision product
+  (:func:`~mlx_mcmc_tpu.ops.dispatch.value_precision`).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import jax
 import jax.numpy as jnp
 
 from mlx_mcmc_tpu.distributions import Normal
+from mlx_mcmc_tpu.ops.dispatch import value_precision
 
 
 class GLMSpec(NamedTuple):
@@ -56,7 +58,8 @@ def make_logistic_regression(
 
     def log_prob(params):
         beta = params["beta"]
-        s = jnp.dot(X, beta.astype(X.dtype), preferred_element_type=jnp.float32)
+        s = jnp.dot(X, beta.astype(X.dtype), precision=value_precision(X.dtype),
+                    preferred_element_type=jnp.float32)
         # Bernoulli log-lik: y*s - softplus(s), stable for large |s|.
         log_lik = jnp.sum(y * s - jax.nn.softplus(s))
         log_prior = jnp.sum(Normal(0.0, prior_scale).log_prob(beta))
@@ -92,7 +95,8 @@ def make_linear_regression(
 
     def log_prob(params):
         beta = params["beta"]
-        mu = jnp.dot(X, beta.astype(X.dtype), preferred_element_type=jnp.float32)
+        mu = jnp.dot(X, beta.astype(X.dtype), precision=value_precision(X.dtype),
+                     preferred_element_type=jnp.float32)
         resid = y - mu
         log_lik = -0.5 * jnp.sum(resid * resid) / (noise_scale**2)
         log_prior = -0.5 * jnp.sum(beta * beta) / (prior_scale**2)

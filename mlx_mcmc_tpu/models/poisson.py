@@ -9,7 +9,7 @@ Two variants:
 - ``covariate_dim=0`` (pure event rates): y_{g,i} ~ Poisson(exp(theta_g)),
   theta_g = mu + tau * theta_raw_g. The Poisson is an exponential family, so
   the data enters ONLY through per-group sufficient statistics
-  (S_g = sum_i y_{g,i} and the count n) — the TPU-first answer is the exact
+  (S_g = sum_i y_{g,i} and the count n) — the answer is the exact
   O(N) -> O(G) collapse in :mod:`mlx_mcmc_tpu.ops.suffstats`
   (``make_poisson_rates_model``), same as the Gaussian hier1000 row.
 
@@ -18,7 +18,7 @@ Two variants:
   The term exp(x_{g,i} . beta) destroys the sufficient-statistic structure:
   every density/gradient evaluation must touch all N observations. This is
   the honest non-collapsible "Large model" row
-  (benchmarks/poisson_roofline.py measures where it sits on the roofline).
+  (ops/poisson.py holds its hand-written value and gradient).
 """
 
 from __future__ import annotations
@@ -93,10 +93,11 @@ def make_poisson_event_rates(
         lp += jnp.sum(Normal(0.0, 1.0).log_prob(theta_raw))
         if covariate_dim > 0:
             beta = params["beta"]
-            # precision=HIGHEST: the MXU's default bf16 operand rounding
+            # precision=HIGHEST: a predictor with rounded operands (bf16,
+            # or TF32 from a default-precision float32 product on the GPU)
             # injects O(nats) log-likelihood noise at 100K-obs count scale,
-            # which collapses NUTS adaptation (measured r5; see
-            # ops/pallas/poisson.py). The contraction is tiny (K per obs).
+            # which collapses NUTS adaptation (see ops/poisson.py). The
+            # contraction is tiny (K per obs).
             s = s + jnp.dot(
                 X, beta, precision=jax.lax.Precision.HIGHEST
             )  # (G, n)

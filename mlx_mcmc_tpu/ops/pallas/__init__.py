@@ -1,11 +1,10 @@
-"""Pallas TPU kernels for the sampler hot path (SURVEY.md §7 design delta #7).
+"""Pallas GPU kernels for the sampler hot path (SURVEY.md §7 design delta #7).
 
 The hot op of every gradient-based kernel is ``value_and_grad(log_prob)``
-inside the leapfrog integrator. For GLM-family likelihoods XLA's autodiff
-evaluates it as two passes over the design matrix (forward ``X @ beta``,
-backward ``X^T r``) — 2x the HBM traffic of the fused single-pass kernels
-here, which compute both contractions per X tile while it is resident in
-VMEM.
+inside the leapfrog integrator. For GLM-family likelihoods the plain
+version writes the (chains, observations) linear predictor and residual
+to device memory and reads them back; the fused kernel here keeps both on
+chip while each block of the design matrix feeds both contractions.
 """
 
 from mlx_mcmc_tpu.ops.pallas.glm import (

@@ -4,10 +4,10 @@ The public model API is the reference's dict-of-params ``log_prob`` contract
 (reference: mlx_mcmc/inference/mcmc.py:20-31, README.md:61-77): a user model is
 a function ``log_prob(params: dict[str, array]) -> scalar``.
 
-TPU-first delta: the samplers never integrate Hamiltonian dynamics over Python
+Design delta: the samplers never integrate Hamiltonian dynamics over Python
 dicts (the reference does per-param dict comprehensions inside leapfrog,
 mlx_mcmc/kernels/hmc.py:69-100). Here the position is a single flat f32 vector
-living in HBM/VMEM — one fused VPU update per leapfrog half-step — and the
+living in device memory — one fused elementwise update per leapfrog half-step — and the
 dict view only exists inside the user's ``log_prob`` closure via ``unravel``.
 """
 

@@ -6,7 +6,7 @@ reference's "Large model" class, README.md:105-113) is
     y_{g,i} ~ N(theta_g, sigma),   theta = mu + tau * theta_raw
 
 For a *Gaussian* likelihood with per-group means, the data enters the
-log-density only through per-group sufficient statistics — so the TPU-first
+log-density only through per-group sufficient statistics — so the compiled-engine
 "fused kernel" for this model is to hoist the entire O(N) data reduction out
 of the hot loop at data-prep time. With group means ``ybar_g`` and counts
 ``n_g``:
@@ -20,10 +20,10 @@ O(chains * N) to O(chains * G) — 100x fewer FLOPs at 100 obs/group — and the
 collapse is EXACT (same posterior; the quadratic is expanded around ybar_g,
 so every term is O(posterior scale) and there is no large-sum cancellation —
 the failure mode that sank the hoisted GLM epilogue, see
-ops/pallas/glm.py:_fused_hoisted_kernel).
+docs/DESIGN.md §4b).
 
 After the collapse the per-leapfrog op is a few (chains, G) elementwise
-passes — far below MXU/HBM limits — so no Pallas kernel is warranted: the
+passes — far below compute/HBM limits — so no Pallas kernel is warranted: the
 hier1000 benchmark becomes NUTS-bookkeeping-bound, which is the correct
 hardware outcome for a model with closed-form sufficient statistics.
 
@@ -211,7 +211,7 @@ def make_poisson_rates_model(
     n exp(theta_g)`` (= d ll / d theta_g), the non-centered chain rule gives
     ``d/dmu = sum r``, ``d/dlog_tau = tau * sum(r * theta_raw)``,
     ``d/dtheta_raw = tau * r`` — all (chains, G) elementwise + two small
-    reductions, far below MXU/HBM limits, so (as with the Gaussian collapse)
+    reductions, far below compute/HBM limits, so (as with the Gaussian collapse)
     no Pallas kernel is warranted.
     """
     inv_mu_var = 1.0 / (prior_mu_scale * prior_mu_scale)

@@ -2,9 +2,9 @@
 
 The reference is single-device/single-chain with no communication layer
 (SURVEY.md §2.3: no NCCL/MPI/Gloo anywhere; multi-chain is a roadmap item,
-README.md:212-214). This package is the TPU-native replacement: chains are a
+README.md:212-214). This package is the compiled replacement: chains are a
 sharded axis of a ``jax.sharding.Mesh``, warmup adaptation statistics ride
-``lax.pmean``/``psum`` collectives over ICI/DCN, and multi-host runs
+``lax.pmean``/``psum`` collectives over the interconnect, and multi-host runs
 initialize through ``jax.distributed``.
 """
 

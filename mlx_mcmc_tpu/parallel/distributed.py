@@ -1,9 +1,10 @@
 """Multi-host runtime initialization.
 
-Thin wrapper over ``jax.distributed.initialize`` — the TPU-native equivalent
-of the communication backend the reference lacks entirely (SURVEY.md §2.3).
-On Cloud TPU pods the coordinator/process settings auto-detect; explicit
-arguments are for CPU-based multi-process testing.
+Thin wrapper over ``jax.distributed.initialize`` — the communication
+backend the reference lacks entirely (SURVEY.md §2.3). Nothing detects a
+cluster on its own here: pass ``coordinator_address`` (e.g.
+``localhost:<port>``), ``num_processes`` and ``process_id`` explicitly,
+on GPU hosts as in CPU multi-process tests.
 """
 
 from __future__ import annotations

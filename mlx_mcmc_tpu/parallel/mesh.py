@@ -2,10 +2,10 @@
 
 Chains map to a data-parallel mesh axis ('chains'); very large observation
 sets can additionally shard the likelihood over a 'data' axis (the MCMC
-analog of sequence/tensor parallelism — SURVEY.md §5.7). On a multi-host pod
-slice, ``jax.experimental.mesh_utils`` lays the axes out so 'data'
-collectives (per-leapfrog psum of log-likelihood terms) ride ICI within a
-host's chips while 'chains' (one pmean per warmup step) spans DCN.
+analog of sequence/tensor parallelism — SURVEY.md §5.7). The GPUs of one
+host are joined all to all by NVLink, so every placement of the axes costs
+the same and the mesh is a plain reshape of ``jax.devices()``: it follows
+the algorithm alone.
 """
 
 from __future__ import annotations
@@ -14,7 +14,6 @@ from typing import Optional, Sequence
 
 import jax
 import numpy as np
-from jax.experimental import mesh_utils
 from jax.sharding import Mesh
 
 
@@ -32,14 +31,12 @@ def data_chain_mesh(
     data: int,
     devices=None,
 ) -> Mesh:
-    """2-D ('chains', 'data') mesh: chains x data-shards.
+    """2-D ('chains', 'data') mesh: chains x data-shards, a plain reshape of
+    the first ``chains * data`` devices (or of ``devices``).
 
-    The 'data' axis carries the per-leapfrog log-likelihood psum (latency
-    critical -> keep it on ICI); the 'chains' axis only communicates once per
-    warmup draw.
+    The 'data' axis carries the per-leapfrog log-likelihood psum; the
+    'chains' axis only communicates once per warmup draw.
     """
     if devices is None:
-        device_array = mesh_utils.create_device_mesh((chains, data))
-    else:
-        device_array = np.asarray(devices).reshape(chains, data)
-    return Mesh(device_array, ("chains", "data"))
+        devices = jax.devices()[: chains * data]
+    return Mesh(np.asarray(devices).reshape(chains, data), ("chains", "data"))

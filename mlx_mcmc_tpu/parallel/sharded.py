@@ -1,6 +1,6 @@
 """Mesh-sharded multi-chain sampling with collective warmup adaptation.
 
-The distributed execution path (SURVEY.md §2.3 "TPU-native equivalents"):
+The distributed execution path (SURVEY.md §2.3 "native equivalents"):
 chains shard over a mesh axis via ``shard_map``; each shard runs the same
 compiled engine (``inference/engine.py``) with its local chain block, and the
 warmup adaptation statistics — mean acceptance for dual averaging, Welford

@@ -1,5 +1,7 @@
-"""Utilities: typed configs, profiling helpers, roofline/MFU accounting."""
+"""Utilities: typed configs, profiling helpers, roofline/MFU accounting,
+the persistent compile cache."""
 
+from mlx_mcmc_tpu.utils.compile_cache import enable_compile_cache
 from mlx_mcmc_tpu.utils.config import (
     AdaptationConfig,
     MeshConfig,
@@ -23,4 +25,5 @@ __all__ = [
     "glm_vag_flops",
     "glm_vag_bytes",
     "roofline_report",
+    "enable_compile_cache",
 ]

@@ -1,6 +1,6 @@
 /* fastdiag: native batched MCMC diagnostics.
  *
- * The TPU framework computes draws on-device; diagnostics post-processing
+ * The framework computes draws on-device; diagnostics post-processing
  * (R-hat / ESS over a (chains, draws, params) tensor that can reach
  * hundreds of MB for the large benchmarks) runs on host. This module is the
  * native engine for that path: OpenMP across parameters, direct

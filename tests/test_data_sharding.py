@@ -174,7 +174,7 @@ class TestDataSharding:
             data_specs=fused_data_specs(data, "data"),
             log_prior_fn=_log_prior,
             value_and_grad_fn=make_fused_logistic_vag(
-                data_aware=True, use_pallas=False, include_prior=False
+                data_aware=True, include_prior=False
             ),
             **kwargs,
         )
@@ -188,7 +188,7 @@ class TestDataSharding:
             spec.initial_params,
             data=data1,
             value_and_grad_fn=make_fused_logistic_vag(
-                data_aware=True, use_pallas=False, include_prior=True
+                data_aware=True, include_prior=True
             ),
             **kwargs,
         )

@@ -2,7 +2,7 @@
 
 Spawns two OS processes that initialize ``jax.distributed`` over localhost
 TCP through :func:`mlx_mcmc_tpu.parallel.initialize_distributed` — the actual
-multi-host (DCN) code path, which the reference lacks entirely
+multi-host code path, which the reference lacks entirely
 (TECHNICAL_OVERVIEW.md:206-222). Each worker asserts global device
 visibility; a cross-process collective additionally runs when the jax build
 supports CPU collectives (gloo).
@@ -28,6 +28,12 @@ def test_two_process_initialize_and_collective():
     port = _free_port()
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)  # worker sets its own device count
+    # The workers start from tests/; put the repo root on their path so
+    # they import the package from this checkout.
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (repo, env.get("PYTHONPATH")) if p
+    )
     procs = [
         subprocess.Popen(
             [sys.executable, _WORKER, str(pid), "2", str(port)],

@@ -2,7 +2,7 @@
 
 Test strategy ported from the reference's tests/test_distributions.py and
 tests/test_new_distributions.py (analytic points, -inf outside support,
-10k-sample moment matching, constructor validation), plus TPU-specific
+10k-sample moment matching, constructor validation), plus engine-specific
 additions: NaN-safe gradients at support boundaries and traced-parameter
 log-normalizers (which the reference's host-scipy path could not support).
 """
@@ -93,7 +93,7 @@ class TestAnalyticLogProb:
 
 
 # ---------------------------------------------------------------------------
-# Support edges -> -inf, with finite gradients (TPU addition)
+# Support edges -> -inf, with finite gradients (engine addition)
 # ---------------------------------------------------------------------------
 
 

@@ -3,6 +3,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from mlx_mcmc_tpu.ops import (
     make_flat_logprob,
@@ -83,40 +84,61 @@ class TestWelford:
         assert 0 < var < 1  # shrunk toward 1e-3*5/(n+5), not exactly 0
 
 
+class _H100:
+    device_kind = "NVIDIA H100 80GB HBM3"
+
+
 class TestRoofline:
     def test_roofline_report_known_device(self):
         from mlx_mcmc_tpu.utils.roofline import roofline_report
 
-        class FakeDevice:
-            device_kind = "TPU v5 lite"
-
-        # 1e12 flops in 1s at AI 2048 -> bound is the 197 TFLOP/s peak.
-        rep = roofline_report(1e12, 1e12 / 2048, 1.0, FakeDevice())
-        assert rep["achieved_tflops"] == 1.0
-        assert rep["peak_tflops"] == 197.0
-        assert rep["roofline_bound_tflops"] == 197.0
-        assert abs(rep["mfu_pct"] - 100.0 / 197.0) < 0.01
+        # 1e13 flops in 1s at AI 2048 (bf16 operands) -> compute bound at
+        # the 989 TFLOP/s bf16 tensor-core peak.
+        rep = roofline_report(1e13, 1e13 / 2048, 1.0, _H100())
+        assert rep["achieved_tflops"] == 10.0
+        assert rep["peak"] == "bf16" and rep["peak_tflops"] == 989.0
+        assert rep["roofline_bound_tflops"] == 989.0
+        assert abs(rep["mfu_pct"] - 1000.0 / 989.0) < 0.01
 
     def test_roofline_bandwidth_bound(self):
         from mlx_mcmc_tpu.utils.roofline import roofline_report
 
-        class FakeDevice:
-            device_kind = "TPU v5 lite"
-
-        # AI = 1 flop/byte -> bound = 819 GB/s * 1 = 0.819 TFLOP/s.
-        rep = roofline_report(1e12, 1e12, 2.0, FakeDevice())
-        assert rep["roofline_bound_tflops"] == 0.8
+        # AI = 1 flop/byte -> bound = 3350 GB/s * 1 = 3.35 TFLOP/s.
+        rep = roofline_report(1e12, 1e12, 0.5, _H100())
+        assert rep["roofline_bound_tflops"] == 3.4
+        assert rep["hbm_gbs"] == 3350.0
         assert rep["roofline_frac_pct"] > 50.0
 
-    def test_unknown_device_graceful(self):
-        from mlx_mcmc_tpu.utils.roofline import roofline_report
+    def test_unknown_device_raises(self):
+        from mlx_mcmc_tpu.utils.roofline import device_peaks, roofline_report
 
         class FakeDevice:
             device_kind = "Mystery Accelerator"
 
-        rep = roofline_report(1e12, 1e9, 1.0, FakeDevice())
-        assert "mfu_pct" not in rep
-        assert rep["achieved_tflops"] == 1.0
+        with pytest.raises(ValueError, match="device_kind"):
+            roofline_report(1e12, 1e9, 1.0, FakeDevice())
+        with pytest.raises(ValueError, match="device_kind"):
+            device_peaks(FakeDevice())
+
+    @pytest.mark.parametrize("dtype, highest, peak, tflops", [
+        ("bfloat16", False, "bf16", 989.0),
+        ("float32", False, "tf32", 495.0),
+        ("float32", True, "f32", 67.0),
+    ])
+    def test_peak_follows_operands(self, dtype, highest, peak, tflops):
+        from mlx_mcmc_tpu.utils.roofline import roofline_report
+
+        rep = roofline_report(1e12, 1e9, 1.0, _H100(), operand_dtype=dtype,
+                              highest_precision=highest)
+        assert rep["peak"] == peak and rep["peak_tflops"] == tflops
+
+    def test_bound_seconds_side(self):
+        from mlx_mcmc_tpu.utils.roofline import bound_seconds
+
+        t, side = bound_seconds(989e12, 1.0, _H100())
+        assert side == "compute" and abs(t - 1.0) < 1e-9
+        t, side = bound_seconds(1.0, 3.35e12, _H100())
+        assert side == "memory" and abs(t - 1.0) < 1e-9
 
     def test_glm_flop_byte_models(self):
         from mlx_mcmc_tpu.utils.roofline import glm_vag_bytes, glm_vag_flops

@@ -1,7 +1,7 @@
-"""Fused hierarchical-Poisson-regression kernel tests (interpret mode on
-CPU; the compiled path is exercised by benchmarks/poisson_roofline.py on
-real TPU hardware). Oracle: autodiff through the full-data model
-(models/poisson.py, covariate_dim>0 — the non-collapsible Large-model row).
+"""Hierarchical-Poisson-regression value+grad tests (ops/poisson.py; on the
+card chip_smoke.py checks it at full width). Oracles: autodiff through the
+full-data model (models/poisson.py, covariate_dim>0 — the non-collapsible
+Large-model row) and a float64 numpy density.
 """
 
 import jax
@@ -10,9 +10,7 @@ import numpy as np
 import pytest
 
 from mlx_mcmc_tpu.models import make_poisson_event_rates
-from mlx_mcmc_tpu.ops.pallas.poisson import (
-    ROWS_PER_GROUP,
-    _poisson_padded_call,
+from mlx_mcmc_tpu.ops.poisson import (
     make_fused_poisson_model,
     make_fused_poisson_vag,
     prepare_fused_poisson_data,
@@ -34,7 +32,7 @@ def pdata(pspec):
 
 class TestFusedPoissonVag:
     def test_fallback_matches_autodiff(self, pspec, pdata):
-        vag = make_fused_poisson_vag(use_pallas=False)
+        vag = make_fused_poisson_vag()
         flat_lp, z0, _ = make_flat_logprob(
             lambda p: pspec.log_prob(p), pspec.initial_params
         )
@@ -52,70 +50,55 @@ class TestFusedPoissonVag:
             np.asarray(g), np.asarray(g_ref), rtol=2e-4, atol=2e-3
         )
 
-    def test_kernel_body_matches_fallback(self, pspec, pdata):
-        # Execute the actual Pallas body in interpret mode on the padded
-        # augmented operands and compare against dense jnp math.
-        from mlx_mcmc_tpu.ops.pallas.poisson import (
-            _GROUPS_PER_TILE,
-            _assemble_ba,
-            _round_up,
+    def test_value_matches_f64_reference(self):
+        # The value path's log-likelihood against a float64 numpy reference,
+        # at a tolerance that a bf16-rounded linear predictor fails (checked
+        # below on the same data): the precision rule of docs/DESIGN.md §4b.
+        spec = make_poisson_event_rates(
+            num_groups=50, obs_per_group=100, covariate_dim=4, seed=5
+        )
+        data = prepare_fused_poisson_data(spec.y, spec.X)
+        rng = np.random.default_rng(2)
+        G, K = 50, 4
+        Z = np.concatenate([
+            rng.normal(0.0, 0.3, (6, K)),
+            np.full((6, 1), np.log(0.5)),
+            np.full((6, 1), 1.0),
+            rng.normal(0.0, 1.0, (6, G)),
+        ], axis=1).astype(np.float32)
+        lp, _ = jax.vmap(make_fused_poisson_vag(), in_axes=(0, None))(
+            jnp.asarray(Z), data
         )
 
-        rng = np.random.default_rng(1)
-        G, K = 12, 2
-        C = 4
-        n_pad, a_pad = pdata["Xa"].shape
-        g_pad = n_pad // ROWS_PER_GROUP
-        g_per = _GROUPS_PER_TILE
-        k_pad = _round_up(K, 8)
-        n_tiles = g_pad // g_per
-        theta = rng.normal(scale=0.5, size=(C, G)).astype(np.float32)
-        beta = rng.normal(scale=0.3, size=(C, K)).astype(np.float32)
-        c_pad = 128
-        theta_t = jnp.zeros((g_pad, c_pad), jnp.float32).at[:G, :C].set(
-            jnp.asarray(theta).T
-        )
-        beta_t = jnp.zeros((k_pad, c_pad), jnp.float32).at[:K, :C].set(
-            jnp.asarray(beta).T
-        )
-        Ba = _assemble_ba(theta_t, beta_t, k_pad, g_per, a_pad, c_pad)
-        ll_tiles, Ga = _poisson_padded_call(
-            pdata["Xa"], pdata["ym"], Ba, True
-        )
-        # oracle: dense jnp math over the same padded operands
-        Xf = np.asarray(pdata["Xa"], np.float32)
-        y = np.asarray(pdata["ym"][:, 0])
-        m = np.asarray(pdata["ym"][:, 1])
-        shat = np.asarray(pdata["ym"][:, 2])
-        lamhat = np.asarray(pdata["ym"][:, 3])
-        th_rows = np.repeat(
-            np.concatenate(
-                [theta, np.zeros((C, g_pad - G), np.float32)], axis=1
-            ),
-            ROWS_PER_GROUP, axis=1,
-        )
-        s = th_rows + beta @ Xf[:, :K].T
-        lam = m[None, :] * np.exp(s)
-        r = y[None, :] - lam
-        ll_ref = np.sum(y[None, :] * s - lam, axis=-1)
-        gt_ref = r.reshape(C, g_pad, ROWS_PER_GROUP).sum(axis=-1)
-        gb_ref = r @ Xf[:, :K]
-        # the kernel accumulates centered partials per tile; un-center by
-        # adding back the hoisted constant the prep folds into c0
-        center_const = float(np.sum(y * shat - m * lamhat))
-        ll_total = np.asarray(ll_tiles[:, :C]).sum(axis=0) + center_const
-        np.testing.assert_allclose(ll_total, ll_ref, rtol=2e-5, atol=1e-3)
-        Ga = np.asarray(Ga).reshape(n_tiles, a_pad, c_pad)
-        gb = Ga[:, :K, :C].sum(axis=0).T
-        gt = Ga[:, k_pad:, :].reshape(g_pad, c_pad)[:G, :C].T
-        # gradient matmul runs in bf16 on the MXU (deliberate — see
-        # _poisson_kernel): tolerances follow bf16 operand rounding
-        np.testing.assert_allclose(gt, gt_ref[:, :G], rtol=2e-2, atol=0.5)
-        np.testing.assert_allclose(gb, gb_ref, rtol=2e-2, atol=0.5)
+        def data_ll(Z, X):
+            Z = Z.astype(np.float64)
+            y = np.asarray(spec.y, np.float64)
+            theta = Z[:, K + 1, None] + np.exp(Z[:, K, None]) * Z[:, K + 2:]
+            s = theta[:, :, None] + np.einsum("gnk,ck->cgn", X, Z[:, :K])
+            return np.sum(y * s - np.exp(s), axis=(1, 2))
+
+        def log_prior(Z):  # the vag's priors, up to a constant
+            Z = Z.astype(np.float64)
+            mu = Z[:, K + 1]
+            return -0.5 * np.sum(Z**2, axis=1) + 0.5 * mu**2 * (1 - 1 / 25.0)
+
+        def centred(v):  # differences from chain 0: constants cancel
+            return v - v[0]
+
+        ref = centred(data_ll(Z, np.asarray(spec.X, np.float64)) + log_prior(Z))
+        tol = 1e-2
+        err = np.abs(centred(np.asarray(lp, np.float64)) - ref).max()
+        assert err < tol, err
+        # a predictor with bf16-rounded operands misses the same budget
+        Xb = np.asarray(jnp.asarray(spec.X).astype(jnp.bfloat16), np.float64)
+        Zb = Z.copy()
+        Zb[:, :K] = np.asarray(jnp.asarray(Z[:, :K]).astype(jnp.bfloat16))
+        rounded = centred(data_ll(Zb, Xb) + log_prior(Z))
+        assert np.abs(rounded - ref).max() > tol
 
     def test_model_factory_halves_agree(self, pspec, pdata):
         log_prob, vag = make_fused_poisson_model(
-            prior_mu_scale=2.0, prior_log_tau_scale=0.5, use_pallas=False
+            prior_mu_scale=2.0, prior_log_tau_scale=0.5
         )
         flat_lp, z0, _ = make_flat_logprob(
             log_prob, pspec.initial_params, data_aware=True
@@ -127,7 +110,7 @@ class TestFusedPoissonVag:
         )
 
     def test_batched_data_rejected(self, pdata):
-        vag = make_fused_poisson_vag(use_pallas=False)
+        vag = make_fused_poisson_vag()
         Z = jnp.zeros((4, 2 + 2 + 12))
         bd = jax.tree_util.tree_map(
             lambda x: jnp.broadcast_to(x, (4,) + jnp.shape(x)), pdata
@@ -138,7 +121,7 @@ class TestFusedPoissonVag:
     def test_sampling_recovers_beta(self, pspec, pdata):
         from mlx_mcmc_tpu import sample
 
-        log_prob, vag = make_fused_poisson_model(use_pallas=False)
+        log_prob, vag = make_fused_poisson_model()
         res = sample(
             log_prob,
             pspec.initial_params,

@@ -1,5 +1,5 @@
-"""Sharded-chain tests on the 8-device virtual CPU mesh (SURVEY.md §4 TPU
-test plan items (a)/(b): multi-device CI without TPUs, and layout-equivalence
+"""Sharded-chain tests on the 8-device virtual CPU mesh (SURVEY.md §4
+test plan items (a)/(b): multi-device CI without accelerators, and layout-equivalence
 between shardings)."""
 
 import jax
